@@ -19,9 +19,9 @@ def main():
     path = sys.argv[1] if len(sys.argv) > 1 else None
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 20
 
-    import jax
+    from g2o_tpu.utils.cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
+    enable_compile_cache()
 
     from g2o_tpu.core.lm_fused import optimize_fused
     from g2o_tpu.core.solvers import SchurSolver

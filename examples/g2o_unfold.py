@@ -8,7 +8,7 @@ edges past it the *border* (``tools.cpp
 findConnectedEdgesWithCostLimit``).  It then optimizes and gnuplot-dumps
 the edges annotated with their chi2 (``tools.cpp gnudump_edges``).
 
-TPU-native formulation: per-edge chi2 for the whole graph is ONE batched
+Array-program formulation: per-edge chi2 for the whole graph is ONE batched
 device computation (``Problem.edge_chi2_fn``), the region growing is a
 host-side BFS over the (static) adjacency, and the optimization is the
 standard fused LM runner.

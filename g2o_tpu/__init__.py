@@ -1,6 +1,6 @@
-"""g2o_tpu — a TPU-native graph-optimization framework.
+"""g2o_tpu — a JAX graph-optimization framework.
 
-A from-scratch JAX/XLA/Pallas reimagining of sparse nonlinear least-squares on
+A from-scratch JAX/XLA reimagining of sparse nonlinear least-squares on
 hyper-graphs (SLAM pose graphs, bundle adjustment) with the capabilities of
 the reference C++ framework surveyed in ``SURVEY.md``:
 

@@ -1,6 +1,6 @@
 """Anonymize landmark observations / loop closures of a 2D pose graph.
 
-TPU-native counterpart of the reference ``g2o_anonymize_observations``
+JAX counterpart of the reference ``g2o_anonymize_observations``
 tool (``g2o/apps/g2o_simulator/g2o_anonymize_observations.cpp:40-112``):
 
 * landmark observation edges (``EdgeSE2PointXY`` /

@@ -51,8 +51,8 @@ def _build_solver_table():
         return ImplicitSchurSolver()
 
     def schur_implicit_bucketed():
-        # the TPU fast path: degree-bucketed landmark reductions + one-hot
-        # MXU camera matmuls + eta-forcing CG (inexact Newton)
+        # the BA fast path: degree-bucketed landmark reductions + one-hot
+        # camera matmuls + eta-forcing CG (inexact Newton)
         from g2o_tpu.core.solvers.schur_implicit import ImplicitSchurSolver
 
         return ImplicitSchurSolver(max_iter=100, tol=1e-2, precond="jacobi",
@@ -102,7 +102,7 @@ def _make_algorithm(name, fused):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="g2o_tpu",
-        description="TPU-native graph optimizer (g2o-compatible CLI subset)")
+        description="JAX graph optimizer (g2o-compatible CLI subset)")
     ap.add_argument("input", nargs="?", help=".g2o input file")
     ap.add_argument("-i", "--iterations", type=int, default=10,
                     help="iterations; negative enables gain termination "
@@ -193,6 +193,9 @@ def main(argv=None):
 
     import jax
 
+    from g2o_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.fp64:
         jax.config.update("jax_enable_x64", True)
 

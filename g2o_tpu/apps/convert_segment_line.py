@@ -1,6 +1,6 @@
 """Convert a segment-based 2D graph into a line-based one.
 
-TPU-native counterpart of the reference ``convertSegmentLine`` tool
+JAX counterpart of the reference ``convertSegmentLine`` tool
 (``g2o/apps/g2o_simulator/convertSegmentLine.cpp:110-262``): poses and
 odometry edges are copied; every ``VERTEX_SEGMENT2D`` becomes a
 ``VERTEX_LINE2D`` (same id, supporting-line parameters of its

@@ -1,4 +1,4 @@
-"""Hierarchical (multilevel) pose-graph optimization — TPU-native analogue
+"""Hierarchical (multilevel) pose-graph optimization — JAX analogue
 of the reference ``g2o_hierarchical`` app (``apps/g2o_hierarchical/``,
 SURVEY.md §2.4):
 
@@ -194,7 +194,7 @@ def optimize_hierarchical(graph: Graph, *, star_radius: int = 4,
     # marginals solve recovers every star's boundary covariances (other
     # stars don't couple, so the H^-1 blocks are star-local).  The
     # reference optimizes stars one by one (``star.h:52``); the batched
-    # union is the TPU-shaped equivalent. ---
+    # union is the batched equivalent. ---
     star_members: list[list[int]] = [[] for _ in range(n_stars)]
     for vid, sid in star_of.items():
         star_members[sid].append(vid)

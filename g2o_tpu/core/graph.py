@@ -10,7 +10,8 @@ information + robust kernel, vertices can be fixed (gauge) or marginalized
 Unlike the reference there are no virtual objects: the builder stores plain
 numpy records and ``compile()`` freezes them into a structure-of-arrays
 :class:`~g2o_tpu.core.problem.Problem` of jnp arrays, grouped by type — the
-TPU analogue of ``SparseOptimizer::initializeOptimization`` + ``buildIndexMapping``
+array analogue of ``SparseOptimizer::initializeOptimization`` +
+``buildIndexMapping``
 (``g2o/core/sparse_optimizer.cpp:201,168``).
 """
 
@@ -257,7 +258,7 @@ class Graph:
         (reference level filter: ``g2o/core/sparse_optimizer.cpp:232``).
         ``bucket_landmarks=True`` stores landmark-observation edge batches in
         the degree-bucketed layout (scatter-free H/b assembly + implicit
-        Schur — the TPU fast path for BA-scale problems).
+        Schur — the scatter-free path for BA-scale problems).
         ``static_kernels=False`` keeps robust-kernel dispatch fully dynamic
         (required when kernel ids are mutated after compile, e.g. the
         capacity-padded incremental mode)."""

@@ -291,7 +291,7 @@ class IncrementalOptimizer:
         self._edges_dirty = False
         if getattr(solver, "precond_mode", None) == "frozen":
             # warm start: ONE preconditioner build per update; all LM
-            # iterations/λ-trials of this update reuse it (the TPU
+            # iterations/λ-trials of this update reuse it (the device-side
             # analogue of the reference's cross-update factor reuse,
             # ``g2o_incremental/linear_solver_cholmod_online.h``)
             solver.refresh_precond(self._problem)

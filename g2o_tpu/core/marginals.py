@@ -6,14 +6,14 @@ backed by ``MarginalCovarianceCholesky``
 Two backends:
 
 * **dense** (small problems): factorise the dense tangent-space Hessian once
-  (MXU Cholesky) and solve all requested columns in one batched triangular
+  (dense Cholesky) and solve all requested columns in one batched triangular
   solve — the covariance blocks are ``(H^-1)[slots_i, slots_j]``.
 * **sparse** (uniform-block pose graphs at scale): reuse the
   :class:`~g2o_tpu.core.solvers.supernodal.SupernodalCholeskySolver`'s
   amalgamated block factor and run its batched-panel triangular solves
   over a batch of unit-block right-hand sides — where the reference walks
   the CSparse/CHOLMOD factor with the Takahashi recursion (``solveBlocks``,
-  ``solvers/cholmod/linear_solver_cholmod.h:160-230``), the TPU version
+  ``solvers/cholmod/linear_solver_cholmod.h:160-230``), the batched version
   vmaps the substitution over the requested columns.  Memory is
   O(nnz(L) + n·d·k) instead of O(T²).
 
@@ -130,7 +130,7 @@ def _schur_marginals(problem, spans, *, lam, estimates):
     Schur complement ``S = A - B D^-1 B^T``:
 
     * pose blocks:      ``Cov_pp = (S^-1)[p, p]`` — batched triangular
-      solves on unit columns of the (already dense, MXU-factorized) reduced
+      solves on unit columns of the (already dense, Cholesky-factorized) reduced
       matrix;
     * landmark blocks:  ``Cov_jj = D_j^-1 + Y_j^T S^-1 Y_j`` with
       ``Y_j = (B D^-1)[:, j]`` assembled from the per-observation blocks —

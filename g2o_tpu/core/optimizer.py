@@ -1,6 +1,6 @@
 """Nonlinear optimization algorithms + the optimizer driver.
 
-TPU-native analogues of the reference algorithm layer:
+JAX analogues of the reference algorithm layer:
 
 * :class:`GaussNewton` — ``OptimizationAlgorithmGaussNewton``
   (``g2o/core/optimization_algorithm_gauss_newton.cpp:50``)

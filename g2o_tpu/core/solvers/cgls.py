@@ -1,6 +1,6 @@
 """Square-root CGLS solver — the fork's flagship capability.
 
-TPU-native reformulation of the fork's ``JacobiSolver`` +
+Array-program reformulation of the fork's ``JacobiSolver`` +
 ``LinearSolverPCGEigen`` pair (``g2o/core/jacobi_solver.hpp:480-697``,
 ``g2o/solvers/eigen/linear_solver_pcg_eigen.h:33-502``): instead of
 assembling the Hessian, iterate directly on the damped least-squares system
@@ -10,7 +10,7 @@ assembling the Hessian, iterate directly on the damped least-squares system
 with W = rho' * Omega.  Where the fork materialises sqrt(W)J as an Eigen
 triplet matrix with cached lambda-row pointers (``jacobi_solver.hpp:601-687``),
 here the whitened Jacobian exists only as the cached per-edge blocks: J p and
-J^T r are batched einsums + segment-sum scatters (MXU/VPU work), and the
+J^T r are batched einsums + segment-sum scatters (matmul and elementwise work), and the
 damping rows are the closed-form terms sqrt(lambda) p / -lambda x.
 
 The fork's per-camera/per-point thin-QR preconditioners Rc^-1 / Rp^-1
@@ -45,8 +45,8 @@ class CGLSSolver:
         self.eta = float(eta)
         if matvec_precision not in ("default", "highest"):
             raise ValueError(f"unknown matvec_precision {matvec_precision!r}")
-        # "highest" = exact-f32 J/J^T/whitening einsums — bf16 matvec
-        # noise stalls CG at the cap once LM converges (CLAUDE.md)
+        # "highest" = exact-f32 J/J^T/whitening einsums — TF32 matvec
+        # noise stalls CG at the cap once LM converges
         self.matvec_precision = matvec_precision
         self.onehot_max_segments = int(onehot_max_segments)
         self._solve_fn = None
@@ -97,7 +97,7 @@ class CGLSSolver:
             (``p.bucket_specs``) avoid the row-serialized landmark gather:
             the per-landmark value broadcasts over the slab's degree axis
             inside a dense einsum; the camera gather becomes an exact
-            one-hot MXU matmul."""
+            one-hot matmul."""
             out = {}
             for name, et in p.edge_types.items():
                 batch = data.edges[name]
@@ -141,7 +141,7 @@ class CGLSSolver:
 
         def Jt(data, lin, Ls, u):
             """v = J^T sqrt(W)^T u -> block layout (bucketed edge types use
-            dense slab reductions / one-hot MXU scatters, see Jmat)."""
+            dense slab reductions / one-hot scatters, see Jmat)."""
             out = {t: jnp.zeros((p.counts[t], vt.tangent_dim), dtype=p.dtype)
                    for t, vt in p.vertex_types.items()}
             for name, et in p.edge_types.items():
@@ -201,7 +201,8 @@ class CGLSSolver:
                     for t in p.vertex_types}
 
         def dot_edges(a, b):
-            # multiply+sum: exact f32 (TPU vdot defaults to bf16 passes)
+            # multiply+sum: exact f32 (a DEFAULT-precision dot may run in
+            # TF32 on the GPU)
             return sum(jnp.sum(a[k] * b[k]) for k in a)
 
         tdot = p.tree_dot

@@ -2,10 +2,10 @@
 ``LinearSolverDense`` (``g2o/solvers/dense/linear_solver_dense.h:46``).
 
 Scatter-assembles the tangent-space Hessian to a dense (T, T) matrix and
-factorizes with XLA's Cholesky.  On TPU the factorization maps directly onto
-the MXU; this is the preferred backend whenever the reduced system fits in
-HBM (e.g. pose graphs up to a few thousand poses, and the reduced camera
-system after Schur complement)."""
+factorizes with XLA's Cholesky (cuSOLVER on the GPU); this is the
+preferred backend whenever the reduced system fits in device memory (e.g.
+pose graphs up to a few thousand poses, and the reduced camera system
+after Schur complement)."""
 
 from __future__ import annotations
 

@@ -1,16 +1,16 @@
 """Matrix-free preconditioned conjugate gradient.
 
-TPU-native analogue of the reference ``LinearSolverPCG``
+Array-program analogue of the reference ``LinearSolverPCG``
 (``g2o/solvers/pcg/linear_solver_pcg.h:47``): instead of iterating a
 ``SparseBlockMatrix``, the Hessian-vector product is evaluated directly from
 the cached per-edge Jacobian blocks as Σ Jᵀ(W(J v)) — batched small matmuls +
 segment-sum scatter, which XLA fuses into a handful of kernels.
 
-The entire CG recurrence runs in BLOCK LAYOUT (``{type: (N_t, d_t)}``): TPU
-gathers/scatters serialize per element, so the flat-vector formulation's
-``v[idx]`` with ``(E, k·d)`` element indices costs ~d× more per CG iteration
-than row-level gathers, and the block-Jacobi preconditioner application
-becomes a pure batched einsum with no gather at all.  Only the final update
+The entire CG recurrence runs in BLOCK LAYOUT (``{type: (N_t, d_t)}``): the
+flat-vector formulation's ``v[idx]`` with ``(E, k·d)`` element indices
+moves ~d× more index traffic per CG iteration than row-level gathers, and
+the block-Jacobi preconditioner application becomes a pure batched einsum
+with no gather at all.  Only the final update
 vector is joined back to the flat ``(T,)`` layout.
 
 Preconditioners:
@@ -22,7 +22,7 @@ Preconditioners:
   coupling is solved exactly with ONE batched dense Cholesky per
   application.  Pose-graph Hessians are dominated by the trajectory chain,
   so capturing it cuts CG iterations several-fold while costing a single
-  MXU-friendly batched factorization.  Falls back to Jacobi for problems
+  batched dense factorization.  Falls back to Jacobi for problems
   without a single uniform vertex type.
 * ``"chunk2"`` — two-level additive Schwarz: the chunk solves above are
   upgraded to capture ALL intra-chunk couplings (nearby loop closures, not
@@ -32,8 +32,8 @@ Preconditioners:
   loop closures between distant poses, which neither Jacobi nor the
   tridiagonal chunks can do; on loopy 2D pose graphs (manhattan worlds) it
   cuts CG iterations several-fold again.  Both levels are batched dense
-  MXU work (one ``(nc, cd, cd)`` Cholesky + one ``(nc·d)²`` coarse factor
-  per λ-trial, pure einsums per CG application).
+  work (one ``(nc, cd, cd)`` Cholesky + one ``(nc·d)²`` coarse factor per
+  λ-trial, pure einsums per CG application).
 
 The CG recurrence runs entirely on device inside ``lax.while_loop``; only the
 final update vector returns to the host."""
@@ -63,13 +63,13 @@ class PCGSolver:
             raise ValueError(f"unknown precond_mode {precond_mode!r}")
         # preconditioner dtype override: an f64 CG (needed when the solve
         # must resolve kappa ~1e9 small modes, e.g. the manhattan gn_var
-        # fixed point) keeps its VECTORS and matvec in f64 — but f64
-        # factorizations/matmuls are emulated on TPU (20-80x f32, measured
-        # scripts/probe_f64_tpu.py).  The preconditioner only shifts the
-        # convergence RATE, so both its BUILD (chunk Cholesky + coarse
-        # inverse) and APPLY run at precond_dtype (f32) with boundary
-        # casts: application rounding is a ~1e-7 relative perturbation of
-        # a fixed SPD operator.
+        # fixed point) keeps its VECTORS and matvec in f64, while f64
+        # factorizations/matmuls cost far more than f32 ones on an
+        # accelerator.  The preconditioner only shifts the convergence
+        # RATE, so both its BUILD (chunk Cholesky + coarse inverse) and
+        # APPLY run at precond_dtype (f32) with boundary casts: application
+        # rounding is a ~1e-7 relative perturbation of a fixed SPD
+        # operator.
         self.precond_dtype = precond_dtype
         self.max_iter = int(max_iter)
         self.tol = float(tol)
@@ -78,12 +78,12 @@ class PCGSolver:
         self.chunk_size = int(chunk_size)
         # "frozen": the preconditioner is built by refresh_precond() and
         # travels via ``aux`` instead of being rebuilt inside every solve —
-        # the TPU-native warm start for incremental/online optimization
+        # the device-side warm start for incremental/online optimization
         # (the reference's CHOLMOD update/downdate,
         # ``g2o_incremental/linear_solver_cholmod_online.h``, is a
         # sequential sparse-factor mutation with no SPMD formulation; a
         # slightly-stale preconditioner + CG achieves the same
-        # reuse-across-updates economics on TPU)
+        # reuse-across-updates economics)
         # "every_k": per-solve rebuild is replaced by a lax.cond-gated
         # rebuild every K-th solve INSIDE the fused loop — the chunk2
         # build (chunk Cholesky + coarse inverse) is ~half the manhattan
@@ -92,8 +92,8 @@ class PCGSolver:
         self.precond_mode = precond_mode
         self.precond_refresh_every = int(precond_refresh_every)
         # > 0: replace row gathers/scatters in the H·v product with exact
-        # one-hot MXU matmuls for vertex types of at most this many vertices
-        # (see Problem.hvp_operator) — a large per-CG-iteration win on TPU
+        # one-hot matmuls for vertex types of at most this many vertices
+        # (see Problem.hvp_operator)
         self.onehot_max_segments = int(onehot_max_segments)
         # reference-PCG absoluteTolerance residual continuation: floor each
         # solve's stopping threshold by HALF the previous solve's final
@@ -104,13 +104,13 @@ class PCGSolver:
         # continuation strength: next solve's threshold floor =
         # carry_factor * this solve's final residual² (reference uses 0.5,
         # ``linear_solver_pcg.hpp:149``).  Smaller = deeper late solves;
-        # measured (scripts/probe_manhattan3.py): 0.5 plateaus manhattan LM
-        # at chi2 9192 where near-exact solves reach the reference 9146.5
+        # 0.5 plateaus manhattan LM at chi2 ~9192 where near-exact solves
+        # reach the reference 9146.5
         self.carry_factor = float(carry_factor)
-        # precision of the H·v einsums inside the CG loop: TPU lowers f32
-        # matmuls to bf16 MXU passes at "default" (~1e-3 relative), which
-        # caps how far CG can reduce the true residual; "highest" runs
-        # exact f32 (3 MXU passes) — required when the LM tail needs
+        # precision of the H·v einsums inside the CG loop: at "default" the
+        # GPU runs f32 matmuls in TF32 on the tensor cores (~1e-3
+        # relative), which caps how far CG can reduce the true residual;
+        # "highest" runs full f32 — required when the LM tail needs
         # near-exact solves (the manhattan reference-chi2 target)
         if matvec_precision not in ("default", "highest"):
             raise ValueError(f"unknown matvec_precision {matvec_precision!r}")
@@ -229,8 +229,8 @@ class PCGSolver:
     def setup(self, problem, force: bool = False):
         # repeated setup on the SAME problem is a no-op: rebuilding the
         # closures re-creates jax.jit objects (fresh traces + compile-cache
-        # loads, ~1 s each) — measured 0.2 s/LM-iter pathology when
-        # refresh-driven drivers called optimize_fused in blocks.  Callers
+        # loads) on every call when refresh-driven drivers call
+        # optimize_fused in blocks.  Callers
         # that mutate edge index arrays (incremental adds) pass force=True.
         if getattr(self, "_setup_for", None) is problem and not force:
             return self
@@ -327,12 +327,7 @@ class PCGSolver:
             def unstacked_vec(z):
                 return {t: z[tbase[t]:tbase[t] + counts[t], :dims[t]]
                         for t in tnames}
-            # coarse system size, padded to 96-col panels so the blocked
-            # HIGHEST-precision Cholesky kernels stay inside the f32-safe
-            # XLA expander range (see solvers/supernodal.py:_SAFE_XLA_DIM)
-            ncd = nc * d
-            panel = 96
-            ncd_pad = -(-ncd // panel) * panel
+            ncd = nc * d                         # coarse system size
 
             def build_chunk_blocks(data, lin, lam, cmaps):
                 eye = eye_d
@@ -340,21 +335,20 @@ class PCGSolver:
                 if n_pad > n:
                     pad = jnp.tile(eye[None], (n_pad - n, 1, 1))
                     D = jnp.concatenate([D, pad], axis=0)
-                # chunk diagonals: pure broadcast (a (n_pad,)-row scatter
-                # would serialize per row on TPU)
+                # chunk diagonals: pure broadcast, no (n_pad,)-row scatter
                 eye_c = jnp.eye(c, dtype=pdtype)
                 M = (D.reshape(nc, c, 1, d, d)
                      * eye_c[None, :, :, None, None])
                 if two_level:
                     # ALL intra-chunk couplings (subsumes the chain) as ONE
-                    # one-hot MXU reduction: rows (both orientations) into
-                    # the (chunk·c, c) grid — exact f32 on the MXU
+                    # one-hot matmul reduction: rows (both orientations)
+                    # into the (chunk·c, c) grid — exact f32 at HIGHEST
                     for name in binary:
                         m = cmaps[name]
                         ci, l0, l1 = m["ci"], m["l0"], m["l1"]
                         Js, W = _jw(lin, name)
                         # HIGHEST: these blocks feed the chunk Cholesky —
-                        # bf16 MXU off-diagonal error (~1e-3 rel) can turn
+                        # TF32 off-diagonal error (~1e-3 rel) can turn
                         # near-singular chunk blocks indefinite → NaN
                         # (full edge length, non-intra rows masked out —
                         # the maps travel via aux so incremental refresh
@@ -427,8 +421,8 @@ class PCGSolver:
                         [Dm, jnp.zeros((n_pad - n, d, d), dtype=pdtype)])
                 Dc = Dm.reshape(nc, c, d, d).sum(axis=1)   # chunk aggregate
                 # every edge block onto its (chunk_a, chunk_b) entry via a
-                # TWO-SIDED one-hot MXU product (a (nc²)-segment scatter
-                # would serialize per row): S[a,b] = Σ_e 1[ca=a]·H_e·1[cb=b]
+                # TWO-SIDED one-hot product instead of an (nc²)-segment
+                # scatter: S[a,b] = Σ_e 1[ca=a]·H_e·1[cb=b]
                 S = jnp.zeros((nc, d * d, nc), dtype=pdtype)
                 for name in binary:
                     seg = cmaps[name]["seg"]
@@ -458,23 +452,15 @@ class PCGSolver:
                 cover = cmaps["cover"]                        # (nc, d)
                 Hc = Hc.at[di, di].add(
                     jnp.einsum("cd,de->cde", 1.0 - cover, eye))
-                Hd = Hc.transpose(0, 2, 1, 3).reshape(ncd, ncd)
-                if ncd_pad > ncd:
-                    pad = ncd_pad - ncd
-                    Hd = jnp.pad(Hd, ((0, pad), (0, pad)))
-                    Hd = Hd.at[jnp.arange(ncd, ncd_pad),
-                               jnp.arange(ncd, ncd_pad)].set(1.0)
-                return Hd
+                return Hc.transpose(0, 2, 1, 3).reshape(ncd, ncd)
 
             def invert_coarse(Hd):
-                # explicit inverse via Hc⁻¹ = L⁻ᵀ L⁻¹: ONE blocked
-                # triangular sweep + one HIGHEST rank-k product (half the
-                # sequential panel steps of a forward+backward solve pair)
-                from g2o_tpu.core.solvers.supernodal import (
-                    _chol_batched, _solve_lower_batched)
-                L = _chol_batched(Hd[None], panel)
-                eye_p = jnp.eye(ncd_pad, dtype=pdtype)[None]
-                Linv = _solve_lower_batched(L, eye_p, panel)[0]
+                # explicit inverse via Hc⁻¹ = L⁻ᵀ L⁻¹: one triangular solve
+                # + one HIGHEST rank-k product (half the work of a
+                # forward+backward solve pair against the identity)
+                L = jnp.linalg.cholesky(Hd)
+                Linv = jax.scipy.linalg.solve_triangular(
+                    L, jnp.eye(ncd, dtype=pdtype), lower=True)
                 return jnp.einsum("ki,kj->ij", Linv, Linv,
                                   precision=jax.lax.Precision.HIGHEST)
 
@@ -505,11 +491,9 @@ class PCGSolver:
                             [rm, jnp.zeros((n_pad - n, d), dtype=pdtype)],
                             axis=0)
                     rcoarse = rm.reshape(nc, c, d).sum(axis=1).reshape(ncd)
-                    if ncd_pad > ncd:
-                        rcoarse = jnp.pad(rcoarse, (0, ncd_pad - ncd))
                     yc = jnp.einsum("ij,j->i", Cinv, rcoarse,
                                     precision=jax.lax.Precision.HIGHEST)
-                    zc = yc[:ncd].reshape(nc, d)
+                    zc = yc.reshape(nc, d)
                     gfm = stacked_vec(
                         data, {t: 1.0 - data.fixed[t].astype(pdtype)[:, None]
                                * jnp.ones((1, dims[t]), pdtype)

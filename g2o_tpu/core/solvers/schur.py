@@ -1,7 +1,7 @@
 """Schur-complement linear solver for bundle adjustment.
 
-TPU-native reformulation of the reference ``BlockSolver::solve`` Schur path
-(``g2o/core/block_solver.hpp:315-447``):
+Array-program reformulation of the reference ``BlockSolver::solve`` Schur
+path (``g2o/core/block_solver.hpp:315-447``):
 
 * the per-landmark ``Dinv = Hll_j^-1`` loop (``:350``) becomes one vmapped
   batched inverse over all landmark blocks;
@@ -10,7 +10,7 @@ TPU-native reformulation of the reference ``BlockSolver::solve`` Schur path
   (all ordered pairs of observations sharing a landmark) scatter-added into
   the dense reduced camera matrix — pairs replace the CCS column walk, and
   scatter-add replaces the mutexes;
-* the reduced system is factorized with XLA's dense Cholesky (MXU-bound) —
+* the reduced system is factorized with XLA's dense Cholesky —
   the analogue of handing ``Hschur`` to CHOLMOD (``:408``);
 * landmark back-substitution ``xl = Dinv (bl - Hpl^T xp)`` (``:420-443``)
   is a segment-sum + batched matmul.
@@ -37,8 +37,7 @@ _HI = jax.lax.Precision.HIGHEST
 class SchurSolver:
     name = "schur"
 
-    def __init__(self, use_cholesky: bool = True, mesh=None,
-                 use_pallas: bool | None = None):
+    def __init__(self, use_cholesky: bool = True, mesh=None):
         """``mesh``: optional ``jax.sharding.Mesh`` with an ``'edges'`` axis.
         When given, the observation and Schur-pair batches are sharded over
         it, so the per-landmark inversions, B-block products and pair
@@ -49,13 +48,6 @@ class SchurSolver:
         (``block_solver.hpp:339-393``, SURVEY.md §2.7/§7)."""
         self.use_cholesky = use_cholesky
         self.mesh = mesh
-        # Pallas MXU segment-sum for the pair aggregation. Measured on
-        # 1x v5e (175k pairs -> 2401 blocks of 81): 2.5 ms at default MXU
-        # precision (bf16-rounded operands, ~2e-3 rel err) vs 4.0 ms for the
-        # XLA scatter; at full f32 precision (required for Hessian
-        # accumulation) the 3-pass matmul costs 5.3 ms. Kept as an opt-in
-        # for bf16-tolerant pipelines; default off.
-        self.use_pallas = bool(use_pallas) if use_pallas is not None else False
         self._solve_jit = None
 
     # ------------------------------------------------------------------ #
@@ -333,15 +325,8 @@ class SchurSolver:
             M = jnp.einsum("pdm,pfm->pdf", BD[aux["pairs_a"]],
                            B[aux["pairs_b"]], precision=_HI)
             M = M * aux["pair_valid"][:, None, None].astype(M.dtype)
-            if self.use_pallas:
-                from g2o_tpu.ops.pallas_kernels import segment_sum_mxu
-
-                Mu = segment_sum_mxu(
-                    M.reshape(M.shape[0], dp * dp), aux["pair_seg"],
-                    n_uniq).reshape(n_uniq, dp, dp)
-            else:
-                Mu = jax.ops.segment_sum(M, aux["pair_seg"],
-                                         num_segments=n_uniq)
+            Mu = jax.ops.segment_sum(M, aux["pair_seg"],
+                                     num_segments=n_uniq)
             rows = (aux["uniq_row"][:, None]
                     + jnp.arange(dp)[None, :])[:, :, None]
             cols = (aux["uniq_col"][:, None]

@@ -25,16 +25,16 @@ Two observation layouts:
   batch's own ``vidx`` (which already travels inside ``data``).  The solver
   owns no index arrays, every reduction is a plain XLA scatter-add, and
   GSPMD edge-sharding reproduces the single-device result bit-for-bit.
-* ``layout="bucketed"`` — the TPU fast path.  TPU gathers/scatters process
-  rows near-serially, so at Venice scale (900k observations) they are ~85%
-  of every CG iteration.  At ``setup`` the observations are permuted into a
+* ``layout="bucketed"`` — no row gathers or scatters over the observation
+  axis.  At ``setup`` the observations are permuted into a
   landmark-degree-bucketed layout (``g2o_tpu/ops/bucketed.py``): the
   landmark-side reduction/broadcast become per-bucket ``einsum`` over a
   dense degree axis (no gather/scatter at all), and the camera-side
-  gather/scatter become one-hot MXU matmuls at ``Precision.HIGHEST``
-  (exact in f32, ~3x faster than the row scatter — measured 2.5-3.0 ms vs
-  8.3 ms for 900k rows into 800 cameras on 1× v5e).  Index arrays travel
-  via ``solver.aux``.
+  gather/scatter become one-hot matmuls at ``Precision.HIGHEST`` (exact
+  in f32).  Index arrays travel via ``solver.aux``.  Whether it beats
+  ``rows`` depends on the device: on the GPU a scatter-add is native, and
+  the (N, cameras) one-hot may be materialised rather than fused into the
+  matmul.
 
 Preconditioners:
 
@@ -83,11 +83,11 @@ class ImplicitSchurSolver:
         self.onehot_max_segments = int(onehot_max_segments)
         self.max_buckets = int(max_buckets)
         # precision of the S·v one-hot matmuls INSIDE the CG loop.  "auto"
-        # uses the TPU's fast bf16 MXU passes (~1e-3 relative) when the
-        # eta-forcing tolerance is loose enough to absorb them (tol >= 1e-3;
-        # the setup, preconditioner, and back-substitution always run at
-        # HIGHEST) and exact f32 otherwise — measured 9.7 -> 3.15 ms per CG
-        # iteration at Venice scale together with the dims-major layout.
+        # uses DEFAULT precision (TF32 on the GPU's tensor cores, ~1e-3
+        # relative) when the eta-forcing tolerance is loose enough to
+        # absorb it (tol >= 1e-3; the setup, preconditioner, and
+        # back-substitution always run at HIGHEST) and exact f32
+        # otherwise.
         self.matvec_precision = matvec_precision
         # reference-PCG absoluteTolerance semantics: carry half the final
         # preconditioned residual into the next solve's stopping threshold
@@ -201,8 +201,8 @@ class ImplicitSchurSolver:
             return out
 
         def pdot(a, b):
-            # multiply+sum: exact f32 on VPU lanes (TPU vdot defaults to
-            # bf16 MXU passes — noisy CG scalars stall convergence)
+            # multiply+sum: exact f32 elementwise work (a DEFAULT-precision
+            # dot may run in TF32 — noisy CG scalars stall convergence)
             return sum(jnp.sum(a[t] * b[t]) for t in pose_types)
 
         # ---------------- bucketed layout: host symbolic phase ------------ #
@@ -248,8 +248,8 @@ class ImplicitSchurSolver:
         elif self.matvec_precision == "highest":
             MV = _HI
         else:
-            # bf16 MXU passes (~1e-3 relative) are absorbed by eta-forcing
-            # CG when tol is loose; exact f32 otherwise (and always in f64)
+            # TF32 matmuls (~1e-3 relative) are absorbed by eta-forcing CG
+            # when tol is loose; exact f32 otherwise (and always in f64)
             MV = (jax.lax.Precision.DEFAULT
                   if (self.tol >= 1e-3
                       and np.dtype(dtype) == np.dtype(np.float32))
@@ -313,11 +313,10 @@ class ImplicitSchurSolver:
             return jnp.concatenate(out, axis=0)
 
         # ----- dims-major (transposed) CG-loop kernels ----- #
-        # Batched tiny-block einsums on (E, dp, dl) arrays run the MXU at
-        # ~1% utilisation (a 9x3 tile in a 128x128 systolic array per batch
-        # element); with the EDGE axis minormost every contraction is pure
-        # lane-parallel vector work instead.  Measured (Venice, 1x v5e):
-        # the full S·v drops 9.7 -> 3.2 ms per CG iteration.
+        # Batched tiny-block einsums on (E, dp, dl) arrays waste a matmul
+        # unit on 9x3 tiles; with the EDGE axis minormost every
+        # contraction is elementwise work over a long, contiguous axis
+        # instead, which XLA fuses.
 
         def bucket_down_t(spec, Bt, ut):
             """Σ_rows Bᵀu in dims-major: Bt (dp, dl, E), ut (dp, E) →
@@ -457,9 +456,8 @@ class ImplicitSchurSolver:
 
             # off-diagonal blocks B = Jp^T W Jl for the remaining edges,
             # DIMS-MAJOR (edge axis minormost) via explicit broadcast-
-            # multiply-reduce: exact f32 lane-parallel VPU work (the
-            # equivalent einsum lowers to E-batched tiny MXU dots at bf16 —
-            # measured 13.8 vs 2.0 ms at Venice scale)
+            # multiply-reduce: exact f32 elementwise work (the equivalent
+            # einsum lowers to E-batched tiny dots)
             B, Bt = {}, {}
             for name, ps, ls in obs_specs:
                 if dm[name]:
@@ -512,8 +510,8 @@ class ImplicitSchurSolver:
             bl = {t: ball[t] for t in lm_types}
             y = {t: jnp.einsum("nij,nj->ni", Dinv[t], bl[t])
                  for t in lm_types if t not in dm_lm}
-            # dims-major Dinv·bl: exact lane-parallel work (the row-major
-            # batched tiny matvec lowers to MXU dots)
+            # dims-major Dinv·bl: exact elementwise work (the row-major
+            # batched tiny matvec lowers to tiny dots)
             y_bt = {name: jnp.einsum("ijn,jn->in", Dinv_t[name],
                                      bl_bt[name])
                     for name in Dinv_t}
@@ -853,8 +851,8 @@ class ImplicitSchurSolver:
         self.aux = aux
         hi = _HI
         # CG-body matvec precision, same contract as the standard path:
-        # "auto"/"default" = single bf16 MXU passes, "highest" = exact f32
-        # (bf16 matvecs stall CG at the cap once LM converges — CLAUDE.md)
+        # "auto"/"default" = TF32 on the GPU, "highest" = exact f32
+        # (reduced-precision matvecs stall CG at the cap once LM converges)
         mv = _HI if self.matvec_precision == "highest" else None
 
         def damped_diag(data, lin, lam, types):

@@ -1,4 +1,5 @@
-"""Block-sparse Cholesky solver — the TPU formulation of the reference's
+"""Block-sparse Cholesky solver — the batched-array formulation of the
+reference's
 CSparse/CHOLMOD direct solvers (``g2o/solvers/csparse``, ``solvers/cholmod``,
 SURVEY.md §7.3 "the riskiest kernel").
 
@@ -463,7 +464,7 @@ def selected_inverse(Lblocks, sched_aux, pairs, n: int):
 
     One reverse level-scheduled sweep computes ``Σ = H⁻¹`` restricted to
     the pattern of ``L`` (all diagonal blocks + every stored off-diagonal
-    block) in ``O(Σ_j |struct(j)|²)`` batched block ops — the TPU
+    block) in ``O(Σ_j |struct(j)|²)`` batched block ops — the batched
     formulation of the reference's per-entry Takahashi recursion
     (``marginal_covariance_cholesky.h:92``), replacing one full
     triangular-solve pair per requested column.
@@ -549,7 +550,7 @@ class SparseCholeskySolver:
     Mixed vertex types are handled by PADDING every block to the maximum
     tangent dim ``d_max``: padding slots carry a decoupled unit diagonal,
     so the factor/solve/selected-inverse machinery stays one uniform
-    batched schedule (the TPU answer to the reference's
+    batched schedule (the array answer to the reference's
     variable-blocksize ``BlockSolverX``, ``core/block_solver.h:196``).
     N-ary (hyper) edges contribute one H block per slot pair, exactly as
     the reference builds its pattern from whatever blocks exist
@@ -667,8 +668,8 @@ class SparseCholeskySolver:
         def assemble_and_factor(data, lin, lam, aux):
             """Scatter H blocks into the L pattern (permuted) and run the
             level-scheduled numeric factorization.  All H einsums at
-            HIGHEST precision: the TPU bf16 matmul default (~1e-3
-            relative) breaks the SPD-ness a direct factorization needs
+            HIGHEST precision: a reduced-precision matmul (TF32 at
+            DEFAULT on the GPU, ~1e-3 relative) breaks the SPD-ness a direct factorization needs
             (iterative solvers tolerate it; Cholesky NaNs)."""
             hi = jax.lax.Precision.HIGHEST
             blocks = jnp.zeros((n_total, d, d), dtype=dtype)

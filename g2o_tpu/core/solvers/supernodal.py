@@ -1,7 +1,6 @@
-"""Supernodal multifrontal block-sparse Cholesky — the TPU formulation of
-the reference's CHOLMOD supernodal mode (``g2o/solvers/cholmod``,
-``linear_solver_cholmod.h:76``; SURVEY.md §7.3 "supernodal blocking is the
-Pallas-friendly formulation").
+"""Supernodal multifrontal block-sparse Cholesky — the batched-array
+formulation of the reference's CHOLMOD supernodal mode
+(``g2o/solvers/cholmod``, ``linear_solver_cholmod.h:76``; SURVEY.md §7.3).
 
 The plain level-scheduled solver (``sparse_chol.py``) factors one block
 *column* at a time: the elimination tree of a pose graph is ~200+ levels
@@ -10,12 +9,11 @@ step is a tiny (d, d) op.  Supernodal factorization amalgamates contiguous
 columns with (nearly) identical structure into *supernodes* and processes
 each as one dense panel.
 
-**Round-5 redesign — multifrontal, frontal-form factor.**  The previous
-numeric phase kept the factor in a global block-slot array and scatter-added
-every supernode's outer-product update to its ancestors' slots directly:
-at sphere2500 that is ~231k serialized (d, d) scatter rows (TPU scatters
-serialize per row) plus ~134k set rows and ~120k gather rows — ~100 ms per
-factorization, all memory-system serialization, no arithmetic.  The
+**Multifrontal, frontal-form factor.**  A numeric phase that keeps the
+factor in a global block-slot array and scatter-adds every supernode's
+outer-product update to its ancestors' slots directly moves, at
+sphere2500, ~231k (d, d) scatter rows plus ~134k set rows and ~120k gather
+rows per factorization — all memory traffic, no arithmetic.  The
 multifrontal formulation eliminates essentially all of it:
 
 * **frontal matrices**: supernode S owns a dense frontal F_S over the index
@@ -26,7 +24,7 @@ multifrontal formulation eliminates essentially all of it:
 * **one flat assembly array**: H blocks scatter ONCE per edge-type into a
   single flat (T, d, d) frontal-slot array (host-precomputed flat ids);
   per-group frontal panels are then STATIC slices + reshapes, not gathers.
-* **extend-add as MXU matmuls**: the child→parent index mapping is a
+* **extend-add as matmuls**: the child→parent index mapping is a
   block-level one-hot E (built on device from a small int array), and the
   update flows as E·U·Eᵀ — two batched HIGHEST matmuls; the only remaining
   scatter places whole (fp·d, fp·d) slabs at one index per CHILD
@@ -352,97 +350,27 @@ def _strict_lower_block_mask(sp: int, d: int, dtype):
     return jnp.asarray(m, dtype=dtype)
 
 
-# XLA's TPU cholesky/triangular-solve *expanders* are full-f32 only up to
-# their internal base-case size (~128 columns); above it they switch to a
-# blocked path whose inner dots run at DEFAULT (bf16 MXU) precision —
-# measured: clean 1e-7 factors at 96, NaN factors at 144 on sphere2500.
-# Above this threshold we run our own d-block-granular blocked kernels
-# with Precision.HIGHEST trailing updates.
-_SAFE_XLA_DIM = 96
 _HI = jax.lax.Precision.HIGHEST
 
 
-def _use_pallas_chol(dtype, n: int = 0, m: int = 0) -> bool:
-    from g2o_tpu.ops.pallas_chol import use_pallas
+# Batched dense kernels of the numeric phase.  On the GPU XLA hands them to
+# cuSOLVER / cuBLAS, which factor and solve in full f32 at every panel size
+# (the supernodal fronts reach sd = smax·d = 144 at sphere2500, the chunk2
+# coarse system a few thousand columns).
 
-    return use_pallas(dtype, n, m)
-
-
-def _chol_batched(D, d: int):
-    """Batched lower Cholesky of (S, sd, sd), d-blocked when sd is past
-    the XLA expander's full-precision range."""
-    sd = D.shape[-1]
-    if sd <= _SAFE_XLA_DIM or sd % d:
-        return jnp.linalg.cholesky(D)
-    if _use_pallas_chol(D.dtype, sd):
-        # past the XLA expander's full-precision range the in-kernel
-        # per-column pallas recurrence is both exact f32 AND faster than
-        # the d-blocked emulation (ops/pallas_chol.py)
-        from g2o_tpu.ops.pallas_chol import chol_batched
-
-        return chol_batched(D)
-    sp = sd // d
-    L = jnp.zeros_like(D)
-    for k in range(sp):
-        a = k * d
-        Lkk = jnp.linalg.cholesky(D[:, a:a + d, a:a + d])
-        L = L.at[:, a:a + d, a:a + d].set(Lkk)
-        if k + 1 == sp:
-            break
-        B = D[:, a + d:, a:a + d]                       # (S, r, d)
-        X = jnp.swapaxes(jax.scipy.linalg.solve_triangular(
-            Lkk, jnp.swapaxes(B, -1, -2), lower=True), -1, -2)
-        L = L.at[:, a + d:, a:a + d].set(X)
-        D = D.at[:, a + d:, a + d:].add(
-            -jnp.einsum("sik,sjk->sij", X, X, precision=_HI))
-    return L
+def _chol_batched(D):
+    """Batched lower Cholesky of (S, sd, sd)."""
+    return jnp.linalg.cholesky(D)
 
 
-def _solve_lower_batched(L, B, d: int):
-    """Solve L Y = B (L (S, sd, sd) lower, B (S, sd, m)), d-blocked past
-    the XLA expander's full-precision range."""
-    sd = L.shape[-1]
-    if sd <= _SAFE_XLA_DIM or sd % d:
-        return jax.scipy.linalg.solve_triangular(L, B, lower=True)
-    if _use_pallas_chol(L.dtype, sd, B.shape[-1]):
-        from g2o_tpu.ops.pallas_chol import solve_lower_batched
-
-        return solve_lower_batched(L, B)
-    sp = sd // d
-    for k in range(sp):
-        a = k * d
-        Yk = jax.scipy.linalg.solve_triangular(
-            L[:, a:a + d, a:a + d], B[:, a:a + d, :], lower=True)
-        B = B.at[:, a:a + d, :].set(Yk)
-        if k + 1 < sp:
-            B = B.at[:, a + d:, :].add(-jnp.einsum(
-                "sij,sjm->sim", L[:, a + d:, a:a + d], Yk, precision=_HI))
-    return B
+def _solve_lower_batched(L, B):
+    """Solve L Y = B (L (S, sd, sd) lower, B (S, sd, m))."""
+    return jax.scipy.linalg.solve_triangular(L, B, lower=True)
 
 
-def _solve_upper_batched(L, B, d: int):
-    """Solve L^T Y = B with L lower — the backward sweep, d-blocked past
-    the XLA expander's full-precision range."""
-    sd = L.shape[-1]
-    if sd <= _SAFE_XLA_DIM or sd % d:
-        return jax.scipy.linalg.solve_triangular(
-            jnp.swapaxes(L, -1, -2), B, lower=False)
-    if _use_pallas_chol(L.dtype, sd, B.shape[-1]):
-        from g2o_tpu.ops.pallas_chol import solve_upper_batched
-
-        return solve_upper_batched(L, B)
-    sp = sd // d
-    for k in reversed(range(sp)):
-        a = k * d
-        Yk = jax.scipy.linalg.solve_triangular(
-            jnp.swapaxes(L[:, a:a + d, a:a + d], -1, -2),
-            B[:, a:a + d, :], lower=False)
-        B = B.at[:, a:a + d, :].set(Yk)
-        if k > 0:
-            # (L^T)_{i,k} Y_k = L_{k,i}^T Y_k for i < k
-            B = B.at[:, :a, :].add(-jnp.einsum(
-                "sji,sjm->sim", L[:, a:a + d, :a], Yk, precision=_HI))
-    return B
+def _solve_upper_batched(L, B):
+    """Solve L^T Y = B with L lower — the backward sweep."""
+    return jax.scipy.linalg.solve_triangular(L, B, lower=True, trans=1)
 
 
 def factorize_frontal(ACC, aux, static, d: int, lam, gfixed_p, gvalid_p):
@@ -495,7 +423,7 @@ def factorize_frontal(ACC, aux, static, d: int, lam, gfixed_p, gvalid_p):
                              lam * vm + (1.0 - vm))
             eye = jnp.eye(spd, dtype=dtype)
             D = D + eye[None] * dadd.reshape(S, spd)[:, :, None]
-            Ld = jnp.tril(_chol_batched(D, d))
+            Ld = jnp.tril(_chol_batched(D))
 
             if mpb == 0:
                 lv_f.append((Ld, jnp.zeros((S, 0, spd), dtype=dtype)))
@@ -504,7 +432,7 @@ def factorize_frontal(ACC, aux, static, d: int, lam, gfixed_p, gvalid_p):
             P = slab[:, spd:, :spd]
             if pend is not None:
                 P = P + pend[:, spd:, :spd]
-            Pt = _solve_lower_batched(Ld, jnp.swapaxes(P, -1, -2), d)
+            Pt = _solve_lower_batched(Ld, jnp.swapaxes(P, -1, -2))
             cm = jnp.repeat(colmask, d, axis=1).astype(dtype)   # (S, spd)
             rowmask = jnp.repeat(ga["rows"] >= 0, d,
                                  axis=1).astype(dtype)          # (S, mpd)
@@ -568,7 +496,7 @@ def solve_supernodal(factors, b, levels, d: int):
         for (Ld, Pm), ga in zip(lv_f, lv_a):
             cm = jnp.repeat(ga["cols"] >= 0, d, axis=1).astype(dtype)
             rhs = gather_rhs(ga["cols"])
-            y = _solve_lower_batched(Ld, rhs[..., None], d)[..., 0] * cm
+            y = _solve_lower_batched(Ld, rhs[..., None])[..., 0] * cm
             b = scatter_rhs(b, ga["cols"], y)
             if Pm.shape[1]:
                 contrib = jnp.einsum("smk,sk->sm", Pm, y, precision=_HI)
@@ -582,7 +510,7 @@ def solve_supernodal(factors, b, levels, d: int):
             if Pm.shape[1]:
                 xr = gather_rhs(ga["rows"])
                 rhs = rhs - jnp.einsum("smk,sm->sk", Pm, xr, precision=_HI)
-            x = _solve_upper_batched(Ld, rhs[..., None], d)[..., 0] * cm
+            x = _solve_upper_batched(Ld, rhs[..., None])[..., 0] * cm
             b = scatter_rhs(b, ga["cols"], x)
     return b
 
@@ -607,8 +535,8 @@ class SupernodalCholeskySolver:
         self.smax = int(smax)
         self.zeta = float(zeta)
         self.min_size = int(min_separator_size)
-        # mixed-precision iterative-refinement sweeps: in f32 (the TPU
-        # default) the factorization of an ill-conditioned pose-graph
+        # mixed-precision iterative-refinement sweeps: in f32 (the usual
+        # device dtype) the factorization of an ill-conditioned pose-graph
         # Hessian carries a ~1e-2 relative solve error; each sweep reuses
         # the factor plus one matrix-free H·v to shrink it (the classic
         # refinement loop; residual cost << factorization cost)
@@ -716,8 +644,8 @@ class SupernodalCholeskySolver:
             return jnp.pad(M, ((0, 0), (0, d - a), (0, d - b)))
 
         def assemble_and_factor(data, lin, lam, aux):
-            # every H einsum at HIGHEST: on TPU the default is bf16 MXU
-            # passes (~1e-3 relative) — enough to make trailing blocks of
+            # every H einsum at HIGHEST: the DEFAULT precision is TF32 on
+            # the GPU (~1e-3 relative) — enough to make trailing blocks of
             # an ill-conditioned pose-graph Hessian indefinite after the
             # frontal updates (NaN factors)
             ACC = jnp.zeros((acc_T, d, d), dtype=dtype)
@@ -758,8 +686,8 @@ class SupernodalCholeskySolver:
             x = jnp.zeros_like(xperm).at[aux["perm"]].set(xperm)
             if n_refine:
                 # exact-f32 H·v for the refinement residual: at DEFAULT
-                # precision TPU einsums run bf16 MXU passes (~1e-3
-                # relative), turning the correction into bf16 noise
+                # precision the GPU's einsums run in TF32 (~1e-3 relative),
+                # turning the correction into rounding noise
                 hvp = p.hvp_operator(data, lin, precision=_HI)
                 for _ in range(n_refine):
                     xb = {t: x[base[t]:base[t] + p.counts[t], :dims[t]]

@@ -3,7 +3,7 @@
 optimize landmark positions with all poses frozen.
 
 The reference loops over landmarks, running an independent little LM with
-``solveDirect`` per point.  TPU-native formulation: ALL landmarks run their
+``solveDirect`` per point.  Array-program formulation: ALL landmarks run their
 LM *simultaneously* — per-landmark Hessian blocks and gradients come from
 one segment-sum, the (H_jj + lambda_j I)^-1 solves are one vmapped Cholesky,
 and each landmark carries its own (lambda_j, nu_j) trust-region state with

@@ -2,7 +2,7 @@
 
 Where the reference framework uses virtual classes per vertex/edge type
 (``g2o/core/base_vertex.h``, ``base_edge.h``) and a string-tag ``Factory``
-(``g2o/core/factory.h:47``), the TPU-native design uses plain descriptor
+(``g2o/core/factory.h:47``), the array-program design uses plain descriptor
 objects holding pure functions.  A whole *batch* of same-type edges is
 evaluated with one ``vmap``-ed residual and one ``jacfwd`` — replacing both
 per-edge virtual dispatch and the numeric-differentiation fallback
@@ -111,7 +111,7 @@ class EdgeType:
 
 class TypeRegistry:
     """String-tag registry mapping ``.g2o`` tags to descriptors — the
-    TPU-native analogue of the reference ``Factory``
+    JAX analogue of the reference ``Factory``
     (``g2o/core/factory.h:47,164-178``)."""
 
     def __init__(self):

@@ -16,6 +16,11 @@ from __future__ import annotations
 import numpy as np
 
 from g2o_tpu.core.graph import Graph
+from g2o_tpu.utils.cache import CACHE_ROOT
+
+# second place a generated BAL text is kept when data/bal_cache is not
+# writable
+_SPARE_CACHE = f"{CACHE_ROOT}/bal"
 
 
 def load_bal(path_or_file, *, fix_first_camera: bool = False,
@@ -170,7 +175,8 @@ def synthetic_bal_cached(n_cameras=49, n_points=7000, n_obs_per_point=6,
     argsort dominates); the reference pays none of it — ``bal_example``
     loads BAL files from disk (``examples/bal/bal_example.cpp:300``) — so
     the benchmark datasets are generated once and committed under
-    ``data/bal_cache/``.  Falls back to /tmp, then to fresh generation."""
+    ``data/bal_cache/``.  Falls back to the checkout's run-time cache, then
+    to fresh generation."""
     import gzip
     import os
 
@@ -179,7 +185,7 @@ def synthetic_bal_cached(n_cameras=49, n_points=7000, n_obs_per_point=6,
     repo_dir = os.path.join(
         os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__)))), "data", "bal_cache")
-    for d in ([cache_dir] if cache_dir else []) + [repo_dir, "/tmp/bal_cache"]:
+    for d in ([cache_dir] if cache_dir else []) + [repo_dir, _SPARE_CACHE]:
         path = os.path.join(d, fname)
         if os.path.exists(path):
             with gzip.open(path, "rt") as fh:
@@ -187,7 +193,7 @@ def synthetic_bal_cached(n_cameras=49, n_points=7000, n_obs_per_point=6,
     text = make_synthetic_bal(n_cameras=n_cameras, n_points=n_points,
                               n_obs_per_point=n_obs_per_point,
                               pixel_noise=pixel_noise, seed=seed)
-    for d in ([cache_dir] if cache_dir else []) + [repo_dir, "/tmp/bal_cache"]:
+    for d in ([cache_dir] if cache_dir else []) + [repo_dir, _SPARE_CACHE]:
         try:
             os.makedirs(d, exist_ok=True)
             with gzip.open(os.path.join(d, fname), "wt") as fh:
@@ -202,7 +208,7 @@ def make_stress_bal(n_cameras=120, n_points=30_000, mean_obs_per_point=6,
                     depth_sigma=0.8, hub_fraction=0.1, hub_boost=10.0,
                     outlier_fraction=0.07, pixel_noise=1.0,
                     estimate_noise=True, seed=0):
-    """Ill-conditioned synthetic BAL problem (VERDICT r3 item 5).
+    """Ill-conditioned synthetic BAL problem.
 
     The well-conditioned arc scenes of :func:`make_synthetic_bal` understate
     preconditioner and robust-kernel differences; real BAL captures are
@@ -309,13 +315,13 @@ def stress_bal_cached(cache_dir=None, **kw):
     repo_dir = os.path.join(
         os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__)))), "data", "bal_cache")
-    for d in ([cache_dir] if cache_dir else []) + [repo_dir, "/tmp/bal_cache"]:
+    for d in ([cache_dir] if cache_dir else []) + [repo_dir, _SPARE_CACHE]:
         path = os.path.join(d, fname)
         if os.path.exists(path):
             with gzip.open(path, "rt") as fh:
                 return fh.read()
     text = make_stress_bal(**defaults)
-    for d in ([cache_dir] if cache_dir else []) + [repo_dir, "/tmp/bal_cache"]:
+    for d in ([cache_dir] if cache_dir else []) + [repo_dir, _SPARE_CACHE]:
         try:
             os.makedirs(d, exist_ok=True)
             with gzip.open(os.path.join(d, fname), "wt") as fh:

@@ -1,7 +1,8 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-Built on demand with g++ into a per-user cache directory; all callers must
-degrade gracefully (pure-Python fallback) when no compiler is available.
+Built on demand with g++ from the committed sources into the checkout's
+cache directory (``g2o_tpu.utils.cache``); all callers must degrade
+gracefully (pure-Python fallback) when no compiler is available.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ import hashlib
 import os
 import subprocess
 import sys
-import tempfile
+
+from g2o_tpu.utils.cache import CACHE_ROOT
 
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _LIB = None
@@ -28,17 +30,18 @@ def _build_lib() -> str | None:
         with open(src, "rb") as fh:
             h.update(fh.read())
     digest = h.hexdigest()[:16]
-    cache = os.path.join(tempfile.gettempdir(),
-                         f"g2o_tpu_native_{os.getuid()}")
+    cache = os.path.join(CACHE_ROOT, "native")
     os.makedirs(cache, exist_ok=True)
     out = os.path.join(cache, f"libg2o_native_{digest}.so")
     if os.path.exists(out):
         return out
-    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", *srcs, "-o",
-           out + ".tmp"]
+    # concurrent builders (test workers) each write their own file and
+    # rename it into place atomically
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", *srcs, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(out + ".tmp", out)
+        os.replace(tmp, out)
         return out
     except Exception as e:  # no compiler / failed build -> fallback
         print(f"g2o_tpu.native: build failed ({e}); using pure-Python IO",

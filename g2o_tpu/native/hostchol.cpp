@@ -4,12 +4,12 @@
 // our implementation is an independent up-looking factorization on an
 // upper-CSC layout, written against Davis' textbook description).
 //
-// Role in the TPU framework: XLA/Pallas own every large batched compute
-// path, but a tiny ill-conditioned f64 tail system (e.g. the manhattan
-// gn_var fixed point, kappa ~2e9 — f32 floors, TPU f64 dots are emulated
-// 20-80x slow) is a latency-bound SEQUENTIAL workload: exactly what a
-// host core does at speed-of-light.  The hybrid step is: assemble H/b on
-// the TPU, ship ~0.5 MB, factor+solve here in ~10 ms, push dx back.
+// Role in the framework: XLA owns every large batched compute path, but
+// a tiny ill-conditioned f64 tail system (e.g. the manhattan gn_var fixed
+// point, kappa ~2e9 — f32 floors) is a latency-bound SEQUENTIAL workload:
+// exactly what a host core does at speed-of-light.  The hybrid step is:
+// assemble H/b on the device, ship ~0.5 MB, factor+solve here, push dx
+// back.
 //
 // C API (ctypes):
 //   void*  g2o_hostchol_sym(int n, const int64* Ap, const int32* Ai);

@@ -1,11 +1,9 @@
 """Degree-bucketed segment layout — gather/scatter-free segment reductions.
 
-TPU scatters/gathers are processed near-serially per row, so the per-CG-
-iteration segment reductions of the implicit Schur solver (900k observation
-rows into 150k landmarks at Venice scale) dominate its runtime: a measured
-14.6 ms per (E,3)->(NP,3) scatter-add vs 2.4 ms for the same reduction as a
-dense ``reshape(NP, deg, 3).sum(axis=1)`` when every segment has a fixed
-degree.
+The per-CG-iteration segment reductions of the implicit Schur solver
+(900k observation rows into 150k landmarks at Venice scale) can be written
+without any scatter: when every segment has a fixed degree, the reduction
+is a dense ``reshape(NP, deg, 3).sum(axis=1)``.
 
 This module computes, on the host, a *bucketed* permutation of the rows:
 segments are grouped by (rounded-up) degree, every segment's rows are padded
@@ -41,10 +39,9 @@ class BucketPlan(NamedTuple):
     Within a slab, slots are DEGREE-MAJOR: slot ``j * counts[b] + i`` is
     the ``j``-th padded row of segment ``i`` — the segment axis is
     minormost, so a slab viewed as ``(deg, n_seg)`` (or ``(..., deg,
-    n_seg)`` for dims-major arrays) puts the large axis on TPU lanes.
-    The earlier segment-major order made every slab reshape a 4-6 wide
-    lane axis (tile efficiency ~5%); measured ~20 ms per Venice LM
-    iteration in materialised relayouts.
+    n_seg)`` for dims-major arrays) puts the large axis minormost.
+    A segment-major order would make every slab reshape a 4-6 wide minor
+    axis, which XLA materialises as relayouts.
 
     ``seg_perm`` concatenates, slab by slab, the original segment id of
     every padded segment slot (each non-empty segment appears exactly

@@ -1,4 +1,4 @@
-"""Lie-group primitives for the TPU-native graph optimizer.
+"""Lie-group primitives for the graph optimizer.
 
 Pure jnp functions operating on the *last* axis of arrays so every op can be
 ``jax.vmap``-ed over batches of poses.  Conventions match the reference
@@ -489,7 +489,7 @@ def _sim3_W(omega, sigma, s, dtype):
 def _inv3(M):
     """Closed-form general 3x3 inverse (adjugate/determinant) — no LU:
     runs inside vmapped+autodiffed edge residuals where XLA's batched
-    LuDecomposition is a TPU compile hazard (and absent at f64)."""
+    LuDecomposition is a compile hazard on accelerators."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]

@@ -1,115 +1,37 @@
-"""One-hot MXU gather/scatter — exact f32 replacements for row-serialized
-TPU gathers/scatters when the segment count is small enough to amortise.
+"""One-hot gather/scatter as matrix products.
 
-TPU scatter-adds process rows near-serially (measured 8.3 ms for 900k
-9-wide rows into 800 segments on 1x v5e); the same reduction as
-``onehot(idx)^T @ rows`` with ``Precision.HIGHEST`` runs in 2.5-3.0 ms on
-the systolic array and is EXACT in f32 (one-hot entries are exactly
-representable, accumulation happens in f32).  XLA fuses the one-hot
-construction into the matmul, so the (N, S) mask is never materialised.
+A gather ``table[idx]`` and a segment sum over ``idx`` are written as
+``onehot(idx) @ table`` and ``onehot(idx)^T @ rows``.  With
+``Precision.HIGHEST`` the product is EXACT in f32 (one-hot entries are
+exactly representable and accumulation happens in f32), so it can stand in
+for the indexed form anywhere.  XLA may fuse the one-hot construction into
+the matmul; where it does not, the (N, S) mask is materialised, which is
+what bounds the segment counts these forms are used for (see
+``Problem.hvp_operator`` and the bucketed layout of
+``ImplicitSchurSolver``).
 
 Out-of-range ids produce all-zero one-hot rows: gathers return zero rows,
 scatters drop the row — matching XLA's clip/drop semantics for padding
-sentinels.
-
-Hand Pallas kernels for these ops were built twice and MEASURED OFF both
-times (now in ``scripts/pallas_onehot_experimental.py``).  Round 1
-(2026-08-19, 1x v5e, Venice shapes): gridded kernels ~10x slower
-(per-grid-step overhead over ~880 row tiles).  Round 2 (2026-08-20): the
-restructured v2 kernels (ONE grid step, in-kernel double-buffered
-HBM->VMEM DMA loop, relayout-free (S, block) one-hot orientation) removed
-that overhead — and still LOSE to the XLA dot form on every shape,
-measured by while-loop marginal cost with a non-narrowing consumer
-(``scripts/probe_pallas2.py``, 900k rows / 800 segments):
-
-=========  ==========  ===========  ===========
-op          XLA dot     pallas v1    pallas v2
-=========  ==========  ===========  ===========
-scatter d9    1.3-1.4 ms   3.8-5.4 ms   4.7-5.1 ms
-gather  d9    0.70 ms      1.1-3.4 ms   1.4-1.7 ms
-gather  d81   2.5 ms       4.9 ms       4.9 ms
-=========  ==========  ===========  ===========
-
-The cost is the narrow-N one-hot MXU product itself (9/128 lanes useful),
-which XLA's operand-fused dot already executes optimally; a hand kernel
-re-does the same math with extra DMA orchestration.  Beating it requires a
-different ALGORITHM (camera-sorted runs + static boundary reductions) —
-see COMPONENTS.md."""
+sentinels."""
 
 from __future__ import annotations
 
-import os
-
 import jax
-import jax.numpy as jnp
 
 _HI = jax.lax.Precision.HIGHEST
-
-# split3: exact-f32 one-hot products in 3 MXU passes instead of HIGHEST's
-# full two-operand bf16 decomposition.  The one-hot operand is EXACTLY
-# representable in a single bf16 term (entries are 0/1), so only the value
-# operand needs splitting: x = h + m + l with h = bf16(x), m = bf16(x - h),
-# l = x - h - m — each difference is exact in f32 and l itself fits bf16's
-# 8-bit mantissa (24 = 3 x 8), so the three DEFAULT-precision bf16 passes
-# with f32 accumulation reconstruct the exact f32 product up to two extra
-# f32 additions per output element.
-#
-# MEASURED KILL, default OFF (opt in: G2O_TPU_ONEHOT_SPLIT3=1).  Probe
-# 2026-08-21 (scripts/probe_r5d_split3.py, 1x v5e): op-level the split3
-# forms are EXACT and match HIGHEST bit-for-bit-class at venice shapes
-# (900k x 800, scatter 1.77e-6 = f32 accumulation noise, gathers 0.0) —
-# but inside the FUSED venice LM program the pipeline is SLOWER (83 vs
-# 60 ms/iter) and the trajectory diverges (chi2@10 1.538M vs 1.344M):
-# each of the 3 term-dots re-generates the fused (N, S) one-hot (~0.7G
-# compare+casts each, 3 generations vs HIGHEST's one), and in-fusion
-# algebraic simplification can merge term-dots back into a single bf16
-# pass (dot(oh,h)+dot(oh,m)+dot(oh,l) -> dot(oh, bf16-sum)), silently
-# demoting the product to bf16 — the standalone jits don't trigger the
-# rewrite, the fused program can.
-_USE_SPLIT3 = os.environ.get("G2O_TPU_ONEHOT_SPLIT3", "0") == "1"
-
-
-def _split3(x):
-    h = x.astype(jnp.bfloat16)
-    r = x - h.astype(x.dtype)
-    m = r.astype(jnp.bfloat16)
-    l = (r - m.astype(x.dtype)).astype(jnp.bfloat16)
-    return h, m, l
-
-
-def _dot_split3(oh_bf16, flat, dims, *, oh_side):
-    """Σ_terms dot(onehot, term) at DEFAULT precision (one MXU pass each,
-    f32 accumulation).  ``oh_side``: 0 = one-hot is lhs, 1 = rhs."""
-    acc = None
-    for term in _split3(flat):
-        ops = (oh_bf16, term) if oh_side == 0 else (term, oh_bf16)
-        part = jax.lax.dot_general(*ops, dims,
-                                   preferred_element_type=flat.dtype)
-        acc = part if acc is None else acc + part
-    return acc
-
-
-def _split3_applicable(precision, dtype):
-    return (_USE_SPLIT3 and precision is _HI
-            and dtype == jnp.float32)
 
 
 def onehot_scatter_add(idx, rows, n_seg: int, precision=_HI):
     """Sum rows[i] into segment idx[i]: (N, ...) -> (n_seg, ...).
 
-    ``precision`` defaults to exact f32 (HIGHEST semantics; f32 inputs run
-    the 3-pass split3 form); iterative-solver matvecs may pass DEFAULT
-    (bf16 MXU passes, ~1e-3 relative) — measured ~5x faster per op at
-    Venice scale."""
+    ``precision`` defaults to exact f32 (HIGHEST); iterative-solver matvecs
+    may pass DEFAULT, which on the GPU runs the product in TF32 (~1e-3
+    relative)."""
     flat = rows.reshape(rows.shape[0], -1)
     dims = (((0,), (0,)), ((), ()))
-    if _split3_applicable(precision, flat.dtype):
-        oh = jax.nn.one_hot(idx, n_seg, dtype=jnp.bfloat16)
-        out = _dot_split3(oh, flat, dims, oh_side=0)
-    else:
-        oh = jax.nn.one_hot(idx, n_seg, dtype=flat.dtype)
-        out = jax.lax.dot_general(oh, flat, dims, precision=precision,
-                                  preferred_element_type=flat.dtype)
+    oh = jax.nn.one_hot(idx, n_seg, dtype=flat.dtype)
+    out = jax.lax.dot_general(oh, flat, dims, precision=precision,
+                              preferred_element_type=flat.dtype)
     return out.reshape((n_seg,) + rows.shape[1:])
 
 
@@ -118,13 +40,9 @@ def onehot_gather(idx, table, precision=_HI):
     the ``precision`` contract."""
     flat = table.reshape(table.shape[0], -1)
     dims = (((1,), (0,)), ((), ()))
-    if _split3_applicable(precision, flat.dtype):
-        oh = jax.nn.one_hot(idx, table.shape[0], dtype=jnp.bfloat16)
-        out = _dot_split3(oh, flat, dims, oh_side=0)
-    else:
-        oh = jax.nn.one_hot(idx, table.shape[0], dtype=flat.dtype)
-        out = jax.lax.dot_general(oh, flat, dims, precision=precision,
-                                  preferred_element_type=flat.dtype)
+    oh = jax.nn.one_hot(idx, table.shape[0], dtype=flat.dtype)
+    out = jax.lax.dot_general(oh, flat, dims, precision=precision,
+                              preferred_element_type=flat.dtype)
     return out.reshape((idx.shape[0],) + table.shape[1:])
 
 
@@ -134,9 +52,6 @@ def onehot_gather_t(idx, table, precision=_HI):
     edge axis on lanes (no relayout of the (D, N) output needed)."""
     flat = table.reshape(table.shape[0], -1)               # (S, D)
     dims = (((0,), (1,)), ((), ()))
-    if _split3_applicable(precision, flat.dtype):
-        oh = jax.nn.one_hot(idx, table.shape[0], dtype=jnp.bfloat16)
-        return _dot_split3(oh, flat, dims, oh_side=1)
     oh = jax.nn.one_hot(idx, table.shape[0], dtype=flat.dtype)   # (N, S)
     return jax.lax.dot_general(flat, oh, dims, precision=precision,
                                preferred_element_type=flat.dtype)
@@ -150,11 +65,7 @@ def onehot_scatter_add_t(idx, rows_t, n_seg: int, precision=_HI):
     linearize assembly fast path) feed it without a relayout back to
     row-major."""
     dims = (((1,), (0,)), ((), ()))
-    if _split3_applicable(precision, rows_t.dtype):
-        oh = jax.nn.one_hot(idx, n_seg, dtype=jnp.bfloat16)
-        out_t = _dot_split3(oh, rows_t, dims, oh_side=1)
-    else:
-        oh = jax.nn.one_hot(idx, n_seg, dtype=rows_t.dtype)   # (N, n_seg)
-        out_t = jax.lax.dot_general(rows_t, oh, dims, precision=precision,
-                                    preferred_element_type=rows_t.dtype)
+    oh = jax.nn.one_hot(idx, n_seg, dtype=rows_t.dtype)       # (N, n_seg)
+    out_t = jax.lax.dot_general(rows_t, oh, dims, precision=precision,
+                                preferred_element_type=rows_t.dtype)
     return out_t.T                                         # (n_seg, D)

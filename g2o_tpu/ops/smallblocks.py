@@ -44,8 +44,8 @@ def chol_small(A):
 def inv_small(A):
     """Inverse of SPD blocks (..., r, r), closed-form for r in {1, 2, 3},
     Cholesky-based for larger r (callers pass damped Hessian diagonals —
-    always SPD; TPU has no f64 LuDecomposition, so ``jnp.linalg.inv``
-    would fail to compile there for r > 3 at float64)."""
+    always SPD, so Cholesky is the right factorization and avoids a
+    batched LU)."""
     r = A.shape[-1]
     if r == 1:
         return 1.0 / A

@@ -1,17 +1,19 @@
 """Multi-host (multi-process) execution helpers.
 
 The reference has no distributed backend at all (SURVEY.md §5.8 — OpenMP
-shared memory only); this module is the TPU-native scale-out axis.  The
-recipe follows the standard JAX SPMD model:
+shared memory only); this module is the scale-out axis across processes.
+The recipe follows the standard JAX SPMD model:
 
-1. every host process calls :func:`initialize_distributed` (coordinator
-   address + process count + process id — or nothing on Cloud TPU, where
-   they are auto-detected from the metadata server);
-2. :func:`make_global_mesh` builds a mesh over ALL devices of the slice —
+1. every process calls :func:`initialize_distributed` with the
+   coordinator address, the process count and its process id (nothing in
+   a plain GPU machine tells JAX of a cluster, so they are given
+   explicitly);
+2. :func:`make_global_mesh` builds a mesh over ALL devices of the job —
    1-D (``edges``) for pure data-parallel edge sharding, or 2-D
    (``hosts × edges``) via ``hosts_axis=True`` so cross-host traffic rides
-   DCN only for the small replicated reductions while the heavy edge-batch
-   segment sums stay on intra-host ICI;
+   the host network only for the small replicated reductions while the
+   heavy edge-batch segment sums stay on the NVLink between the cards of
+   one host;
 3. shard with :func:`~g2o_tpu.parallel.sharded.shard_problem_data` and run
    the same jitted step — GSPMD inserts the collectives.
 
@@ -39,10 +41,14 @@ def initialize_distributed(coordinator_address: str | None = None,
                            local_device_ids=None) -> None:
     """Bring up the JAX distributed runtime (no-op when already up).
 
+    With an explicit ``coordinator_address`` every failure is raised: a
+    misconfigured launch (wrong address, mismatched process count) must
+    not degrade silently to one process.  Only the "already initialized"
+    error of a repeated call is swallowed.  Without one, a failure to find
+    a cluster means a single-process run, and is ignored.
+
     NOTE: do NOT probe ``jax.process_count()`` first — it initializes the
-    LOCAL backend, after which ``jax.distributed.initialize`` raises; and
-    the no-arg Cloud-TPU auto-detect path must still CALL initialize (an
-    empty-kw early-out left every process single-host)."""
+    LOCAL backend, after which ``jax.distributed.initialize`` raises."""
     kw = {}
     if coordinator_address is not None:
         kw["coordinator_address"] = coordinator_address
@@ -54,10 +60,11 @@ def initialize_distributed(coordinator_address: str | None = None,
         kw["local_device_ids"] = local_device_ids
     try:
         jax.distributed.initialize(**kw)
-    except (RuntimeError, ValueError):
-        # already initialized (repeated call), or a single-process run
-        # where no coordinator can be auto-detected — both are fine
-        pass
+    except (RuntimeError, ValueError) as e:
+        if "should only be called once" in str(e):
+            return
+        if coordinator_address is not None:
+            raise
 
 
 def make_global_mesh(*, hosts_axis: bool = False) -> Mesh:
@@ -67,7 +74,7 @@ def make_global_mesh(*, hosts_axis: bool = False) -> Mesh:
     ``hosts_axis=True``: 2-D ``(hosts, edges)`` with the host axis outermost
     — shard the edge dimension over BOTH axes (``P(('hosts', 'edges'))``)
     and keep estimates replicated; the gradient/Hessian reductions then
-    hierarchically reduce over ICI first, DCN last."""
+    reduce over the cards of a host first, across hosts last."""
     devs = np.asarray(jax.devices())
     if not hosts_axis:
         return Mesh(devs, (EDGE_AXIS,))

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is shared-memory OpenMP loops over edges
 with per-vertex mutexes (``g2o/core/sparse_optimizer.cpp:72-78``,
-``block_solver.hpp:482-506``, SURVEY.md §2.7).  The TPU-native equivalent is
+``block_solver.hpp:482-506``, SURVEY.md §2.7).  The JAX equivalent is
 SPMD over a ``jax.sharding.Mesh``:
 
 * the *edge* axis of every edge-type batch is sharded across devices (the

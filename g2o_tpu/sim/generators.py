@@ -1,6 +1,6 @@
 """Synthetic dataset generators.
 
-TPU-framework analogues of the reference's dataset tooling:
+Analogues of the reference's dataset tooling:
 
 * :func:`create_sphere` — the sphere pose-graph generator
   (``g2o/examples/sphere/create_sphere.cpp:40-231``): poses on a sphere

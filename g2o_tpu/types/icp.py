@@ -1,4 +1,4 @@
-"""GICP types — TPU-native analogue of ``g2o/types/icp/types_icp.h``.
+"""GICP types — JAX analogue of ``g2o/types/icp/types_icp.h``.
 
 ``EDGE_V_V_GICP`` connects two SE3 poses through a pair of corresponding
 surface points with normals: error = ``T0^-1 * (T1 * p1) - p0``

@@ -1,4 +1,4 @@
-"""Bundle-adjustment types — TPU-native analogue of the reference
+"""Bundle-adjustment types — JAX analogue of the reference
 ``g2o/types/sba`` library (expmap variants).
 
 Conventions (matching ``g2o/types/sba/types_six_dof_expmap.h``):

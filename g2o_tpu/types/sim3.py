@@ -1,4 +1,4 @@
-"""Sim3 types — TPU-native analogue of the reference ``g2o/types/sim3``
+"""Sim3 types — JAX analogue of the reference ``g2o/types/sim3``
 library (scale-drift-aware monocular loop closing).
 
 Conventions (matching ``g2o/types/sim3/types_seven_dof_expmap.h``):

@@ -1,4 +1,4 @@
-"""2D SLAM vertex/edge types — TPU-native analogue of the reference
+"""2D SLAM vertex/edge types — JAX analogue of the reference
 ``g2o/types/slam2d`` library.
 
 State conventions (matching the reference so errors/chi2 agree):

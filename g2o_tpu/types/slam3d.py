@@ -1,4 +1,4 @@
-"""3D SLAM vertex/edge types — TPU-native analogue of the reference
+"""3D SLAM vertex/edge types — JAX analogue of the reference
 ``g2o/types/slam3d`` library.
 
 State conventions (matching the reference so errors/chi2 agree):

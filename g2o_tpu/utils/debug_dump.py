@@ -1,4 +1,4 @@
-"""Failure-diagnostics dump — TPU-native analogue of the reference's
+"""Failure-diagnostics dump — JAX analogue of the reference's
 ``writeDebug`` (``g2o/core/solver.h:128-131``; csparse failure branch
 ``g2o/solvers/csparse/linear_solver_csparse.h:128-132`` writes the Hessian
 as an Octave-loadable text file when a Cholesky factorization fails).

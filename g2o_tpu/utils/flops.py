@@ -13,36 +13,43 @@ The model mirrors the reference's own cost accounting axes
 solve), using the measured per-iteration CG and λ-trial counts that
 ``optimize_fused`` returns (``cg_per_iteration``, ``trials_per_iteration``).
 
-Peak numbers: TPU v5e ≈ 197 TFLOP/s bf16 (394 TOPS int8); MFU is reported
-against the bf16 peak — the canonical denominator — even though most of
-this workload runs f32/HIGHEST (3-6 bf16 MXU passes per f32 product), so
-the same model's "mfu" understates achievable-f32 utilization by that
-factor as well.
+Peaks come from one table keyed by ``device_kind`` (NVIDIA's H100 SXM data
+sheet, dense rates at the full 700 W power limit): 495 TFLOP/s TF32 on the
+tensor cores, 67 TFLOP/s float32 outside them, 3.35 TB/s of HBM.  A device
+that is not in the table is an error, not a default.  MFU is reported
+against both f32 rates: an f32 matmul at DEFAULT precision runs TF32 on the
+tensor cores, one at HIGHEST runs full f32, and this workload mixes both.
+A card set below 700 W (``nvidia-smi`` ``power.limit``) cannot hold these
+rates; the benchmark prints the limit beside every MFU.
 """
 
 from __future__ import annotations
 
-_PEAK_BF16 = {
-    # device_kind substring -> peak bf16 FLOP/s
-    "v5 lite": 197e12,
-    "v5e": 197e12,
-    "v5p": 459e12,
-    "v4": 275e12,
-    "v6": 918e12,
-    "v6e": 918e12,
+# device_kind substring (lower case) -> peak rates
+_PEAKS = {
+    "h100": {"tf32_flops_per_s": 495e12,
+             "f32_flops_per_s": 67e12,
+             "hbm_bytes_per_s": 3.35e12},
 }
-_DEFAULT_PEAK = 197e12
 
 
-def device_peak_flops(device=None) -> float:
+def device_peaks(device=None) -> dict:
+    """Peak rates of ``device`` (default: the first JAX device).
+    Raises ``ValueError`` for a device kind not in the table."""
     if device is None:
         import jax
         device = jax.devices()[0]
-    kind = getattr(device, "device_kind", "").lower()
-    for key, peak in _PEAK_BF16.items():
-        if key in kind:
-            return peak
-    return _DEFAULT_PEAK
+    kind = getattr(device, "device_kind", "")
+    for key, peaks in _PEAKS.items():
+        if key in kind.lower():
+            return dict(peaks)
+    raise ValueError(f"no peak rates known for device kind {kind!r}; "
+                     f"known: {sorted(_PEAKS)}")
+
+
+def device_peak_flops(device=None) -> float:
+    """Peak f32-input matmul rate of ``device`` (TF32 tensor cores)."""
+    return device_peaks(device)["tf32_flops_per_s"]
 
 
 def _edge_shapes(problem):
@@ -112,11 +119,10 @@ def _pcg_flops(problem, solver, cg_iters: float, trials: float) -> float:
         apply_ = 2.0 * nc * cd * cd
         if precond == "chunk2":
             ncd = nc * d
-            ncd_pad = -(-ncd // 96) * 96
-            build += ncd_pad ** 3 / 3.0 + 2.0 * ncd_pad ** 3
+            build += ncd ** 3 / 3.0 + 2.0 * ncd ** 3
             build += sum(E * 2.0 * r * d * d
                          for E, r, _ in _edge_shapes(problem).values())
-            apply_ += 2.0 * ncd_pad * ncd_pad
+            apply_ += 2.0 * ncd * ncd
     else:
         build = sum(problem.counts[t] * vt.tangent_dim ** 3
                     for t, vt in problem.vertex_types.items())
@@ -193,11 +199,13 @@ def mfu_report(problem, solver, res: dict, device=None) -> dict | None:
     flops = run_flops(problem, solver, res)
     if flops is None or not res.get("wall_s"):
         return None
-    peak = device_peak_flops(device)
+    peaks = device_peaks(device)
     achieved = flops / res["wall_s"]
     return {
         "algorithmic_flops": float(flops),
         "achieved_flops_per_s": float(achieved),
-        "peak_bf16_flops_per_s": peak,
-        "mfu_vs_bf16_peak": float(achieved / peak),
+        "peak_tf32_flops_per_s": peaks["tf32_flops_per_s"],
+        "peak_f32_flops_per_s": peaks["f32_flops_per_s"],
+        "mfu_vs_tf32_peak": float(achieved / peaks["tf32_flops_per_s"]),
+        "mfu_vs_f32_peak": float(achieved / peaks["f32_flops_per_s"]),
     }

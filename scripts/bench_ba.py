@@ -17,10 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    import jax
+    from g2o_tpu.utils.cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     from g2o_tpu.core.lm_fused import optimize_fused
     from g2o_tpu.core.solvers import SchurSolver
@@ -52,7 +51,7 @@ def main():
         if hasattr(src, "seek"):
             src.seek(0)
         # CGLS and the implicit Schur path ride the compile-time bucketed
-        # layout (scatter-free landmark reductions + one-hot MXU camera
+        # layout (scatter-free landmark reductions + one-hot camera
         # matmuls); the explicit Schur pair path keeps the plain layout
         # loaded EXACTLY as the reference's bal_example loads it (no robust
         # kernel, unperturbed estimates) so per-iteration time and chi2

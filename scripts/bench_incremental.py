@@ -7,7 +7,7 @@ update.  Compares per-update wall time of:
 
 * cold   — per-solve preconditioner rebuild (every λ-trial);
 * warm   — frozen preconditioner refreshed ONCE per update
-           (``PCGSolver(precond_mode="frozen")``), the TPU analogue of the
+           (``PCGSolver(precond_mode="frozen")``), the device-side analogue of the
            reference's CHOLMOD update/downdate factor reuse.
 
 Usage: python scripts/bench_incremental.py [N_POSES] [BATCH] [ITERS]
@@ -62,10 +62,9 @@ def replay(mode, n_poses, batch, iters):
 
 
 def main():
-    import jax
+    from g2o_tpu.utils.cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     n_poses = int(sys.argv[1]) if len(sys.argv) > 1 else 1000
     batch = int(sys.argv[2]) if len(sys.argv) > 2 else 50

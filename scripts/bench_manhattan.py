@@ -15,7 +15,7 @@ Parity facts (reproduced by tests / the CPU path):
 * CPU float64 GN + supernodal Cholesky matches the reference's chi2
   trajectory bit-for-bit: 9144694.2 → 20923378 → 76367.5 → 9478.1 →
   **9116.756452780** (reference gn_var: 9116.756453).
-* On the TPU (float32) the undamped GN normal equations of this
+* In float32 the undamped GN normal equations of this
   near-chain graph (cond ≳ 1e7) exceed single-precision direct
   factorization — LM's damping restores convergence, so the benchmarked
   config is LM + supernodal Cholesky vs the reference's lm_var, the
@@ -24,9 +24,8 @@ Parity facts (reproduced by tests / the CPU path):
   9116.76).
 
 At this problem size (T = 10500, a near-chain sparsity CSparse handles in
-~10 ms/iter) the CPU reference wins wall-clock: a TPU LM iteration is
-dispatch-bound at ~40 ms.  The TPU advantage starts at sphere2500 scale
-(40.6× per iteration) and grows to 102× at Venice BA scale — see README.
+~10 ms/iter) a device LM iteration is dispatch-bound; see PERF.md for
+the measured times.
 
 Usage: python scripts/bench_manhattan.py [N_ITERS]
 """
@@ -42,10 +41,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
-    import jax
+    from g2o_tpu.utils.cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
@@ -64,7 +62,7 @@ def main():
     build_s = time.perf_counter() - t0
 
     # LM + direct supernodal block Cholesky — the reference's lm_var
-    # (CSparse) config (see module docstring for why not GN on TPU f32)
+    # (CSparse) config (see module docstring for why not GN in f32)
     solver = SupernodalCholeskySolver()
     est0 = {t: np.array(v) for t, v in p.estimates.items()}
     res = optimize_fused(p, solver, 2)              # warm-up/compile

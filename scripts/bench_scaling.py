@@ -3,11 +3,10 @@ metric.  Runs the fused SPMD optimization step on meshes of 1, 2, 4, ...
 devices over whatever devices the runtime exposes and reports per-size
 throughput + efficiency vs linear scaling.
 
-On this container only one TPU chip is visible, so the multi-device rows
-come from the CPU fake backend (set
-``XLA_FLAGS=--xla_force_host_platform_device_count=8 ``and force cpu) —
-numerically exact but not a hardware measurement; on a real slice the same
-script produces the hardware numbers.
+With ``--cpu`` the multi-device rows come from the CPU fake backend
+(``XLA_FLAGS=--xla_force_host_platform_device_count=8``) — numerically
+exact but not a hardware measurement; on a machine with several GPUs the
+same script produces the hardware numbers.
 
 Usage: python scripts/bench_scaling.py [--cpu] [N_POSES]
 """
@@ -32,8 +31,9 @@ def main():
             "XLA_FLAGS",
             "--xla_force_host_platform_device_count=8")
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from g2o_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

@@ -5,9 +5,7 @@ problem is generated (hundreds of cameras, hundreds of thousands of points,
 ~1M observations).  At this scale the explicit Schur pair list is memory-
 prohibitive (sum of squared landmark degrees); the matrix-free implicit
 Schur CG (O(observations) memory) is the scalable path — the square-root
-CGLS solver (the fork's approach) is the alternative, currently hampered
-by a pathological fused-runner compile time on the TPU toolchain
-(ROADMAP #4).
+CGLS solver (the fork's approach) is the alternative.
 
 Usage: python scripts/bench_venice.py [N_CAMERAS] [N_POINTS] [N_ITERS]
 """
@@ -22,11 +20,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    import jax
+    from g2o_tpu.utils.cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np

@@ -24,8 +24,9 @@ def timeit(fn, *args, reps=20, **kw):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from g2o_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     import g2o_tpu.types  # noqa: F401

@@ -1,8 +1,8 @@
-"""Phase-level profile of one Venice-scale LM iteration on the TPU.
+"""Phase-level profile of one Venice-scale LM iteration on the GPU.
 
 Times each jitted phase separately (linearize / solver solve / apply+chi2)
-with block_until_ready over many reps.  Per CLAUDE.md: isolated op timings
-under-report by up to ~1.3 ms from dispatch pipelining — fine at the
+with block_until_ready over many reps.  Isolated op timings include
+dispatch overhead that the fused loop does not pay — fine at the
 10-200 ms phase scale profiled here.
 
 Usage: python scripts/profile_venice.py [N_CAMS] [N_PTS] [REPS]
@@ -30,8 +30,9 @@ def timeit(fn, *args, reps=10, **kw):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from g2o_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from g2o_tpu.core.solvers.schur_implicit import ImplicitSchurSolver

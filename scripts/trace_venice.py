@@ -1,5 +1,5 @@
-"""Capture a TPU profiler trace of the fused Venice LM run and print the
-top HLO ops by self time (tensorboard_plugin_profile offline conversion).
+"""Capture a GPU profiler trace of the fused Venice LM run and print the
+top HLO ops by self time (read from the trace's Chrome-format events).
 
 Usage: python scripts/trace_venice.py [N_CAMS] [N_PTS] [N_ITERS]
 """
@@ -11,16 +11,18 @@ import json
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
-TRACE_DIR = "/tmp/venice_trace"
+TRACE_DIR = os.path.join(REPO, "chiprun_out", "venice_trace")
 
 
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from g2o_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from g2o_tpu.core.lm_fused import optimize_fused
     from g2o_tpu.core.solvers.schur_implicit import ImplicitSchurSolver
@@ -44,9 +46,7 @@ def main():
         key=os.path.getmtime)
     print("trace:", xplanes[-1], flush=True)
 
-    # aggregate XLA op durations straight from the Chrome trace (the
-    # tensorboard_plugin_profile converter is broken against this
-    # container's TF protobufs)
+    # aggregate XLA op durations straight from the Chrome trace
     import collections
     import re
 

@@ -94,7 +94,7 @@ def test_implicit_schur_matches_explicit(scene):
 @pytest.mark.parametrize("precond", ["jacobi", "schur_jacobi"])
 def test_implicit_schur_variants_match_explicit(scene, layout, precond):
     """The bucketed observation layout (degree-bucketed reshape reductions +
-    one-hot MXU camera matmuls) and the Schur-Jacobi preconditioner must not
+    one-hot camera matmuls) and the Schur-Jacobi preconditioner must not
     change the solution — only the cost per CG iteration / the iteration
     count."""
     from g2o_tpu.core.solvers.schur_implicit import ImplicitSchurSolver
@@ -138,3 +138,34 @@ def test_implicit_schur_full_lm(scene):
     p = g.compile()
     res = optimize_fused(p, ImplicitSchurSolver(max_iter=200, tol=1e-8), 10)
     assert res["chi2_final"] < 1e-4 * res["chi2_per_iteration"][0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_schur_segment_sum_matches_dense(dtype):
+    """The explicit Schur solver's pair aggregation (``segment_sum`` into
+    unique camera-block pairs) solves the damped system as well as the
+    dense solver does, in f32 and f64.  Measured by the relative residual
+    in the f64 system (backward error, independent of the system's
+    conditioning, ~1e8 here): the dense solve reaches ~3e-7 (f32) and
+    ~5e-16 (f64), the Schur reduction ~6e-5 and ~7e-14; the limits leave
+    a factor of ten."""
+    import jax.numpy as jnp
+
+    g, _ = create_ba_scene(n_cameras=6, n_points=50, pixel_noise=0.5,
+                           point_noise=0.2, seed=5)
+    p64 = g.compile(dtype=jnp.float64)
+    lin64 = p64.linearize_jit(p64.data, p64.estimates)
+    lam = 1e-3
+    H = np.asarray(p64.dense_hessian_fn(p64.data, lin64))
+    A = H + lam * np.eye(len(H))
+    b = np.asarray(lin64.b)
+
+    p = g.compile(dtype=jnp.dtype(dtype))
+    lin = p.linearize_jit(p.data, p.estimates)
+    lam_t = jnp.asarray(lam, p.dtype)
+    limit = 5e-4 if dtype == "float32" else 1e-12
+    for solver in (SchurSolver(), DenseSolver()):
+        dx = np.asarray(solver.setup(p).solve(p.data, lin, lam_t),
+                        np.float64)
+        resid = np.linalg.norm(A @ dx - b) / np.linalg.norm(b)
+        assert resid <= limit, (solver.name, resid)

@@ -1,6 +1,6 @@
 """Degree-bucketed segment layout (``g2o_tpu/ops/bucketed.py``): the
-gather/scatter-free reduction plan used by the implicit Schur solver's TPU
-fast path."""
+gather/scatter-free reduction plan used by the implicit Schur solver's
+bucketed layout."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,7 +1,7 @@
 """Incremental warm start: frozen preconditioner across -inc updates.
 
 The reference's g2o_incremental reuses the CHOLMOD factor across updates
-via update/downdate (``linear_solver_cholmod_online.h``); the TPU-native
+via update/downdate (``linear_solver_cholmod_online.h``); the array-program
 equivalent is a frozen preconditioner refreshed once per update
 (``PCGSolver(precond_mode="frozen")`` + ``refresh_precond``), with the
 carried-residual CG floor persisting across updates.  These tests pin

@@ -53,7 +53,7 @@ def test_precond_dtype_f32_matches_f64_precond():
 
 
 def test_hvp_f64_broadcast_matches_einsum_form():
-    """The f64 broadcast-lane hvp (TPU emulated-dot bypass) must equal
+    """The f64 broadcast-lane hvp (elementwise instead of tiny f64 dots) must equal
     the f32-path einsum formulation up to dtype noise."""
     g = create_manhattan(n_poses=120, seed=2)
     p64 = g.compile(dtype=jnp.float64)

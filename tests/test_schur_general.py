@@ -1,6 +1,6 @@
-"""General marginalization through the implicit Schur solver (VERDICT r4
-item 3): n-ary observation edges (inverse-depth PSI2UV) and per-vertex
-partial marginalization, both exact against the dense solver.  Reference:
+"""General marginalization through the implicit Schur solver: n-ary
+observation edges (inverse-depth PSI2UV) and per-vertex partial
+marginalization, both exact against the dense solver.  Reference:
 ``block_solver.hpp:224-253`` (per-vertex Schur pattern),
 ``base_multi_edge.h:51,115`` (n-ary quadratic form)."""
 

@@ -79,7 +79,7 @@ def test_sharded_implicit_schur_matches_unsharded():
 
 
 def test_sharded_bucketed_implicit_schur_matches_unsharded():
-    """The compile-time bucketed layout (slab reductions + one-hot MXU
+    """The compile-time bucketed layout (slab reductions + one-hot
     matmuls) must also survive GSPMD edge-sharding: dense per-slab
     reductions shard along the slab axis, one-hot matmuls reduce the
     sharded contraction dimension with a psum."""
@@ -150,7 +150,7 @@ def test_sharded_chunk2_pcg_matches_single():
     preconditioner, host-built chunk/intra/coarse index maps) under GSPMD
     edge-sharding must match the single-device solve exactly — the chunk
     preconditioner build consumes sharded ``lin.jacs``/``lin.weights``
-    through one-hot MXU reductions whose partial sums GSPMD completes with
+    through one-hot reductions whose partial sums GSPMD completes with
     collectives."""
     from g2o_tpu.core.solvers import PCGSolver
     from g2o_tpu.sim.generators import create_manhattan
@@ -175,3 +175,19 @@ def test_sharded_chunk2_pcg_matches_single():
 
     assert dx1.shape == dx2.shape
     np.testing.assert_allclose(dx1, dx2, atol=1e-9)
+
+
+def test_initialize_distributed_raises_with_explicit_coordinator():
+    """A misconfigured launch must not degrade silently to one process:
+    with an explicit coordinator the error is raised (here: the backend is
+    already up, so JAX refuses to start the distributed runtime)."""
+    import pytest
+
+    import jax
+
+    from g2o_tpu.parallel import initialize_distributed
+
+    jax.devices()
+    with pytest.raises(RuntimeError):
+        initialize_distributed(coordinator_address="localhost:1",
+                               num_processes=2, process_id=0)

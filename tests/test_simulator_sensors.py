@@ -1,6 +1,6 @@
 """Simulator sensor suite — measurement-model consistency, round-trip,
 and optimization for every sensor kind (reference
-``apps/g2o_simulator/sensor_*``; VERDICT round-1 gap #4).
+``apps/g2o_simulator/sensor_*``).
 
 Each sensor must satisfy:
 (a) zero-noise graph → chi2 == 0 at the generated estimates (the generator

@@ -153,3 +153,54 @@ def test_ternary_calib_matches_dense():
         SupernodalCholeskySolver(refine=2).setup(p).solve(p.data, lin, lam))
     rel = np.linalg.norm(dx_s - dx_d) / np.linalg.norm(dx_d)
     assert rel < 1e-8
+
+
+def test_supernodal_amalgamation_invariant():
+    """Different amalgamation widths reshape the frontal schedule but must
+    produce the same solve (multifrontal extend-add exactness)."""
+    import jax.numpy as jnp
+
+    import g2o_tpu.types  # noqa: F401
+
+    g = create_manhattan(n_poses=300, seed=3)
+    p = g.compile()
+    lin = p.linearize_jit(p.data, p.estimates)
+    lam = jnp.asarray(1e-3, p.dtype)
+    xs = []
+    for smax in (24, 6):
+        s = SupernodalCholeskySolver(smax=smax)
+        s.setup(p)
+        xs.append(np.asarray(s.solve(p.data, lin, lam)))
+    np.testing.assert_allclose(xs[0], xs[1], rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("sd", [48, 144, 288])
+def test_batched_kernels_match_lapack(sd):
+    """The numeric phase's batched Cholesky and triangular solves in f32,
+    at panel widths below and above 96 columns, against LAPACK in f64.
+    Tolerance: a few f32 ulps of the largest entry (the matrices are
+    well conditioned, sd on the diagonal)."""
+    import jax.numpy as jnp
+
+    from g2o_tpu.core.solvers.supernodal import (_chol_batched,
+                                                 _solve_lower_batched,
+                                                 _solve_upper_batched)
+
+    rng = np.random.default_rng(sd)
+    S, m = 5, 7
+    A = rng.standard_normal((S, sd, sd))
+    D = A @ A.transpose(0, 2, 1) / sd + np.eye(sd)
+    B = rng.standard_normal((S, sd, m))
+    L = _chol_batched(jnp.asarray(D, jnp.float32))
+    Lref = np.linalg.cholesky(D)
+    tol = 2e-5
+    assert np.abs(np.asarray(L, np.float64) - Lref).max() \
+        <= tol * np.abs(Lref).max()
+    Y = _solve_lower_batched(L, jnp.asarray(B, jnp.float32))
+    Yref = np.linalg.solve(Lref, B)
+    assert np.abs(np.asarray(Y, np.float64) - Yref).max() \
+        <= tol * np.abs(Yref).max()
+    X = _solve_upper_batched(L, Y)
+    Xref = np.linalg.solve(Lref.transpose(0, 2, 1), Yref)
+    assert np.abs(np.asarray(X, np.float64) - Xref).max() \
+        <= tol * np.abs(Xref).max()
